@@ -1,9 +1,9 @@
-"""nicetpu — TPU-native lossless image codec framework for the `.nice` format.
+"""nicetpu — lossless image codec for the `.nice` format on JAX devices.
 
-A brand-new JAX/XLA/Pallas implementation (with a C++ host oracle) of the
+A JAX/XLA implementation (with a C++ host oracle) of the
 `.nice` lossless RGB image format defined by the reference
 `wouter-rombouts/fast-losless-image-compression-format` (see SURVEY.md for the
-full behavioral spec).  The compute path is TPU-first: the per-pixel mode
+full behavioral spec).  The compute path runs on the device: the per-pixel mode
 cascade, run analysis, histograms and bit-packing are vectorized tensor
 programs; the runtime around them (Huffman table build, header pack/parse,
 serial oracle codec) is native C++/numpy.

@@ -6,7 +6,7 @@ SURVEY §5 gaps the reference leaves open, made first-class here:
   * failure isolation: one bad image doesn't abort the run — errors are
     recorded in the manifest and the stream continues (the reference
     panics, SURVEY §5 "failure detection").
-  * observability: per-image mode-distribution stats (the TPU-era analogue
+  * observability: per-image mode-distribution stats (this codec's analogue
     of the reference's debug counters, ref code.rs:429-438).
 """
 

@@ -2,7 +2,7 @@
 
 Design (SURVEY §2.2): the raster is sharded into contiguous row blocks across
 the mesh's data axis.  Each device:
-  1. receives its 4-row halo from the previous device via `ppermute` (ICI),
+  1. receives its 4-row halo from the previous device via `ppermute`,
   2. tokenizes its block locally (mode decisions depend only on input bytes,
      SURVEY §3.1, so shard-local tokenization composes exactly),
   3. fixes cross-shard run lengths with one tiny `all_gather` of per-shard
@@ -18,7 +18,7 @@ totals — the "ordered gather" of SURVEY §2.2).
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -96,6 +96,7 @@ def _pack_block(bins, aob_lut, code_lut, *, w_cap: int):
     return words, total_bits.reshape(1)
 
 
+@lru_cache(maxsize=8)  # a rebuilt jit recompiles
 def build_sharded_encode(mesh: Mesh, height: int, width: int):
     """Returns jitted (tokenize_fn, pack_fn) for (height, width) rasters
     sharded by rows over mesh axis 'd'."""

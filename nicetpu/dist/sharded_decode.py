@@ -1,32 +1,33 @@
 """Sharded `.nice` decode over a device mesh.
 
-Two shardings (SURVEY §2.2 / §5, VERDICT r2 missing #2):
+Two shardings (SURVEY §2.2 / §5):
 
 * **Batch mode** (`decode_batch_sharded`): a same-shape batch is sharded one
   image per device along the batch axis — every phase of the v3 decoder is
   batch-parallel, so XLA partitions it with zero collectives.
 
 * **Single-raster mode** (`decode_sharded`): ONE bitstream decoded across
-  the mesh.  On TPU meshes the shard body runs the SAME Pallas walk kernel
-  as the single-chip path (chunk0 rides the scalar-prefetch channel); the
-  jnp `walk_ref` twin serves the virtual CPU mesh and parity tests
-  (ADVICE r3 / VERDICT r4 next #5 resolved in r5).  The speculative chunk walk is sharded by chunk ranges (each
-  device holds only its slice of the payload words + a small halo); entry
-  propagation between walk rounds crosses shards with a `ppermute` of one
-  scalar per device — the same anchored-induction consistency gate as the
-  single-chip path, now with its boundary checks riding ICI.  Slot-space
-  assembly uses local cumsums + tiny `all_gather`s of per-shard totals for
-  the global offsets (digit count, coverage) and a cross-shard running max
-  for the digit->pixel attachment.  Reconstruction is row-sharded: records
-  are all_gathered (the ordered-gather analogue), each device keeps its row
-  block, and the 4-row carry (the deepest predictor reach, ref
-  code.rs:141-145) pipelines device-to-device via `ppermute` — the halo'd
-  sharded reconstruction SURVEY §5 plans.
+  the mesh.  The shard body runs the same walk as the single-device path
+  (`decode3.walk_batch`: the GPU kernel on a GPU mesh, the plain scan on
+  the virtual CPU mesh), with `chunk0` telling it which global chunks its
+  local word slice holds.  The speculative chunk walk is sharded by chunk
+  ranges (each device holds only its slice of the payload words + a small
+  halo); entry propagation between walk rounds crosses shards with a
+  `ppermute` of one scalar per device — the same anchored-induction
+  consistency gate as the single-device path, with its boundary checks
+  crossing devices.  Slot-space assembly uses local cumsums + tiny
+  `all_gather`s of per-shard totals for the global offsets (digit count,
+  coverage) and a cross-shard running max for the digit->pixel attachment.
+  Reconstruction is row-sharded: records are all_gathered (the
+  ordered-gather analogue), each device keeps its row block, and the 4-row
+  carry (the deepest predictor reach, ref code.rs:141-145) pipelines
+  device-to-device via `ppermute` — the halo'd sharded reconstruction
+  SURVEY §5 plans.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -56,50 +57,25 @@ def _decode_shard_body(
 ):
     """shard_map body: one device's slice of the single-raster decode.
 
-    words_l: (nlc * chunk_bits/32 + wrows,) int32 local words (with halo);
-    tables replicated.  Returns (rows_block (3, n_local) uint8 channel-
-    planar, ok (1,))."""
+    words_l: (nlc * chunk_bits/32 + LOOKAHEAD_WORDS,) int32 local words
+    (with halo); tables replicated.  Returns (rows_block (3, n_local) uint8
+    channel-planar, ok (1,))."""
     dev = jax.lax.axis_index("d")
     words_l = words_l.reshape(-1)  # shard_map local leading dim
     wbits = wbits1[0]
     chunk0 = dev * nlc
-    bit_base = chunk0 * chunk_bits
     starts = (chunk0 + jnp.arange(nlc, dtype=jnp.int32)) * chunk_bits
     fwd = [(i, i + 1) for i in range(n_dev - 1)]
     aff, dD, inc = d3.derive_walk_tables(
         af[None], present[None], ib[None]
     )  # (1, 10, 32) each
 
-    if d3._use_pallas_walk():
-        # TPU mesh: the shard-local walk runs the SAME Pallas kernel as the
-        # single-chip path (VERDICT r4 next #5 — the jnp scan's
-        # data-dependent gathers cost ~55-400 us/iteration on real chips);
-        # chunk0 rides the kernel's scalar-prefetch channel so local word
-        # blocks walk global bit positions.
-        rows = d3._rows_for(chunk_bits)
-        KB = nlc // (rows * 128)
-        words_blk = d3.make_word_blocks(words_l[None], nlc, chunk_bits, rows)
-
-        def walk(e):
-            pos, sym, i12, i34, exits = d3.walk_pallas(
-                words_blk, d3.chunk_layout(e[None], KB, rows), aff, dD, inc,
-                pfx[None], wbits[None], chunk_bits=chunk_bits, steps=steps,
-                maxl=maxl, rows=rows, chunk0=chunk0[None],
-            )
-            flat = lambda r: d3.flatten_records(r)[0].reshape(nlc, steps)
-            return (
-                flat(pos), flat(sym), flat(i12), flat(i34),
-                d3.chunk_unlayout(exits)[0],
-            )
-
-    else:
-
-        def walk(e):
-            return d3.walk_ref(
-                words_l, e, aff[0], dD[0], inc[0], pfx[0], wbits,
-                chunk_bits=chunk_bits, steps=steps, maxl=maxl,
-                chunk0=chunk0, bit_base=bit_base,
-            )
+    def walk(e):
+        recs = d3.walk_batch(
+            words_l[None], e[None], aff, dD, inc, pfx, wbits[None],
+            chunk0[None], chunk_bits=chunk_bits, steps=steps, maxl=maxl,
+        )
+        return tuple(r[0] for r in recs)
 
     # Speculative rounds with cross-shard entry propagation (anchor: device
     # 0's first entry is bit 0 — ppermute delivers 0 to device 0's slot).
@@ -155,7 +131,7 @@ def _decode_shard_body(
     total_cov = jax.lax.psum(inc_loc[-1], "d")
     ok_cov = total_cov >= n_pixels
 
-    # payload symbols (jnp join on CPU mesh; tiny tables)
+    # payload symbols (per-slot gathers from tiny tables)
     bins = d3._payload_bins(symf[None], i12f[None], i34f[None])
     syms = [d3._sym_join(b, sym_tbl[None])[0] for b in bins]
     rec, dst = d3.slot_records(
@@ -179,17 +155,23 @@ def _decode_shard_body(
     )
     form, delta, refoff = _unpack_rec(recN, width)
 
-    carry = jnp.zeros((3, 4 * width), jnp.int32)
-    out = jnp.zeros((3, n_local), jnp.int32)
-    for stage in range(n_dev):
+    def stage_step(stage, state):
+        # stage k: device k reconstructs its block from the carry device
+        # k-1 sent, then hands its last 4 rows on (one program copy of the
+        # row scan for all stages)
+        carry, out = state
         blk, tail = reconstruct_rows(
             form, delta, refoff, n_local, width, segs, prev4=carry
         )
         active = dev == stage
         out = jnp.where(active, blk, out)
-        send = jnp.where(active, tail, 0)
-        if stage < n_dev - 1:
-            carry = jax.lax.ppermute(send, "d", [(stage, stage + 1)])
+        carry = jax.lax.ppermute(jnp.where(active, tail, 0), "d", fwd)
+        return carry, out
+
+    _, out = jax.lax.fori_loop(
+        0, n_dev, stage_step,
+        (jnp.zeros((3, 4 * width), jnp.int32), jnp.zeros((3, n_local), jnp.int32)),
+    )
     ok = ok_walk & ok_cov
     return out.astype(jnp.uint8), ok[None]
 
@@ -197,18 +179,31 @@ def _decode_shard_body(
 def build_sharded_decode(
     mesh: Mesh, height: int, width: int, wbits_max: int,
     *, chunk_bits: int = d3.CHUNK_BITS, steps_div: int = d3.STEPS_DIV, rounds: int = 3,
-    maxl: int = C.MAX_CODE_LEN,
+    maxl=d3.WALK_MAXL,
 ):
-    """Jitted shard_map decode for (height, width) rasters on mesh axis 'd'."""
+    """Jitted shard_map decode for (height, width) rasters on mesh axis 'd',
+    with each device's chunk count `nlc` bucketed (`decode3.bucket_chunks`)
+    so that payloads of nearly one size share one program.  Returns (fn,
+    nlc, steps)."""
     n_dev = mesh.devices.size
     if height % n_dev or (height // n_dev) < 4:
         raise ValueError(f"height {height} must split into >= 4-row blocks over {n_dev}")
-    nch = -(-wbits_max // chunk_bits)
-    nlc = -(-nch // n_dev)
-    # Pallas path: each device's chunk count pads to whole kernel blocks
-    align = d3._cpb(d3._rows_for(chunk_bits))
-    nlc = -(-nlc // align) * align
+    nch = max(1, -(-wbits_max // chunk_bits))
+    nlc = d3.bucket_chunks(-(-nch // n_dev))
     steps = d3._steps(chunk_bits, steps_div)
+    fn = _sharded_decode_program(
+        mesh, height, width, nlc,
+        chunk_bits=chunk_bits, steps=steps, rounds=rounds, maxl=maxl,
+    )
+    return fn, nlc, steps
+
+
+@lru_cache(maxsize=8)  # a rebuilt jit recompiles
+def _sharded_decode_program(
+    mesh: Mesh, height: int, width: int, nlc: int,
+    *, chunk_bits: int, steps: int, rounds: int, maxl,
+):
+    n_dev = mesh.devices.size
     body = partial(
         _decode_shard_body,
         n_pixels=height * width,
@@ -222,7 +217,7 @@ def build_sharded_decode(
         n_dev=n_dev,
         nlc=nlc,
     )
-    fn = jax.jit(
+    return jax.jit(
         jax.shard_map(
             body,
             mesh=mesh,
@@ -231,7 +226,6 @@ def build_sharded_decode(
             check_vma=False,
         )
     )
-    return fn, nlc, steps
 
 
 def decode_sharded(
@@ -253,29 +247,27 @@ def decode_sharded(
     n_dev = mesh.devices.size
     if H % n_dev or (H // n_dev) < 4 or W < C.MIN_WIDTH:
         # unshardable geometry on this mesh: decode on the host instead of
-        # failing (ADVICE r3) — same contract as the gate-failure fallback
+        # failing — same contract as the gate-failure fallback
         from nicetpu.spec import codec
 
         return codec.decode(data)
     flat_lengths = headers.parse_stream_headers(data[C.FILE_HEADER_BYTES :])
     huffman.validate_flat_lengths(flat_lengths)
-    af, present, ib, pfx16, sym_tbl, stream_max = d3.prepare_tables_v3(flat_lengths)
+    af, present, ib, pfx16, sym_tbl = d3.prepare_tables_v3(flat_lengths)
 
     payload = data[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
     wbits = len(payload) * 8
     chunk_bits = d3.CHUNK_BITS
     fn, nlc, steps = build_sharded_decode(
         mesh, H, W, wbits, rounds=rounds, steps_div=steps_div,
-        maxl=d3.pick_maxl_streams(stream_max),
     )
     wpc = chunk_bits // 32
-    wrows = d3._wrows(chunk_bits)
-    total_words = n_dev * nlc * wpc + wrows
-    flat = np.zeros(total_words, dtype=np.uint32)
+    look = d3.LOOKAHEAD_WORDS
+    flat = np.zeros(n_dev * nlc * wpc + look, dtype=np.uint32)
     src = np.frombuffer(payload + b"\0" * ((-len(payload)) % 4), dtype=">u4")
     flat[: len(src)] = src
     words_l = np.stack(
-        [flat[d * nlc * wpc : d * nlc * wpc + nlc * wpc + wrows] for d in range(n_dev)]
+        [flat[d * nlc * wpc : (d + 1) * nlc * wpc + look] for d in range(n_dev)]
     )
 
     shard = NamedSharding(mesh, P("d"))
@@ -307,9 +299,7 @@ def decode_batch_sharded(
 
     Retries through the same (steps_div, rounds) LADDER as
     `decode_batch_jax_v3` before falling back per image to the host spec
-    decoder; pass `stats` to receive {"fallbacks", "retries", "ok"}
-    (ADVICE r3: the fast-config-only version silently took the slow host
-    path on self-sync-hard images and reported nothing)."""
+    decoder; pass `stats` to receive {"fallbacks", "retries", "ok"}."""
     n_dev = mesh.devices.size
     if len(datas) % n_dev:
         raise ValueError(f"batch size must be a multiple of {n_dev} devices")
@@ -326,7 +316,6 @@ def decode_batch_sharded(
                 "chunk_bits": cfg.chunk_bits,
                 "steps": d3._steps(cfg.chunk_bits, cfg.steps_div),
                 "rounds": cfg.rounds,
-                "rows": cfg.rows,
             },
         )
         return ok, (out,), None

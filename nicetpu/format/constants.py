@@ -112,7 +112,7 @@ MIN_WIDTH = 4
 # ---------------------------------------------------------------------------
 # v = run_length - 1 emitted as base-8 digits LSB-first, digit d as prefix d+5.
 # Run values fit int32 (rasters < 2^31 pixels), so 11 base-8 digits suffice
-# (8^11 = 2^33 > 2^31); this also keeps every threshold int32-safe on TPU.
+# (8^11 = 2^33 > 2^31); this also keeps every threshold int32-safe on device.
 MAX_RUN_DIGITS = 11
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // nice_ref.cpp — native serial oracle codec for the `.nice` format.
 //
-// This is the TPU framework's C++ runtime component (SURVEY §7.1.2): the
+// This is the framework's C++ runtime component (SURVEY §7.1.2): the
 // correctness oracle, fuzz target, serial performance baseline, and the
 // production host-side entropy decoder (entropy decode is inherently serial,
 // SURVEY §7.3.5).  Behavior follows the spec in SURVEY.md Appendix A —

@@ -1,4 +1,4 @@
-"""TPU compute path: vectorized tokenizer, histogram, and bit-pack kernels.
+"""Device compute path: vectorized tokenizer, histogram, bit-pack and decode.
 
 The reference's serial hot loops (SURVEY §3.4) are reformulated as pure
 tensor programs: every mode decision depends only on raw input bytes

@@ -1,9 +1,8 @@
 """Parallel bit-pack as a hierarchical bitstring merge (scatter-free).
 
-TPU-first replacement of the reference's serial Bitwriter loop
+Data-parallel replacement of the reference's serial Bitwriter loop
 (ref hfe.rs:110-113, bitwriter.rs:55-73).  Rather than scattering each code at
-an exclusive-scanned bit offset (TPU scatters serialize at ~15 ns/update,
-measured), packing is a log-depth reduction: every token is a left-aligned
+an exclusive-scanned bit offset, packing is a log-depth reduction: every token is a left-aligned
 bitstring; adjacent bitstrings are concatenated pairwise level by level.
 
 Layout invariants:

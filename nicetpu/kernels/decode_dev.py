@@ -1,14 +1,13 @@
-"""TPU-native `.nice` decode: fully parallel entropy decode + gather-free
-pixel reconstruction, all on device.
+"""Device `.nice` decode v2: fully parallel entropy decode + gather-free
+pixel reconstruction, all on device (superseded by decode3 except for the
+row reconstruction, which decode3 uses).
 
 This is the parallel reformulation of the reference's strictly serial decoder
 (ref code.rs:573-684 reconstruction, hfe.rs:206-222 symbol decode,
-bitreader.rs:78-100 bit peek).  The design is shaped by measured TPU
-behavior: flat gathers/scatters are ~free at any table size, but ANY
-data-dependent gather inside a sequential loop costs ~100us per iteration.
-So there are NO serial token walks anywhere — three ideas:
+bitreader.rs:78-100 bit peek).  It has NO serial token walks and no
+data-dependent gathers inside sequential loops — three ideas:
 
-1. **Per-bit packed walk tables (VPU, gather-free).**  For every payload bit
+1. **Per-bit packed walk tables (gather-free).**  For every payload bit
    position p and every stream s, the canonical code length L_s(p) is a
    handful of unsigned threshold compares of the 32-bit window at p against
    the per-length first codes (format.huffman.decode_dev_tables).  All ten
@@ -471,9 +470,7 @@ def reconstruct_serial(form, delta, refoff, n_pixels: int, width: int):
     (cross-tested against reconstruct_rows; use only for small rasters).
 
     delta is CHANNEL-PLANAR (3, N); returns (3, N).  (All reconstruction
-    arrays are planar: a channel-minor (N, 3) layout tiles the 3-wide minor
-    dim to 128 lanes on TPU — ~2% lane utilization and a 42x pad in HBM;
-    measured as the dominant cost of the r3 decoder.)"""
+    arrays are planar: each channel is a contiguous (N,) row.)"""
     N, W = n_pixels, width
 
     def body(out, i):
@@ -553,9 +550,8 @@ def reconstruct_rows(
             return (new, r1, r2, nt, t1, t2), None
 
         # Inner scans are fully unrolled: at W=512/segs=32 the three nested
-        # loops are 64 sequential XLA while-iterations per row, each with
-        # ~1-2 us of loop overhead — measured ~59 us/row at batch 8, i.e.
-        # ~30 ms of the whole decode.  Unrolling turns each row body into
+        # loops would be 64 sequential XLA while-iterations per row, each
+        # with its own loop overhead.  Unrolling turns each row body into
         # straight-line code (lengths are static and small).
         (r1, r2, r3, t1, t2, t3), _ = jax.lax.scan(
             build_step,
@@ -726,7 +722,7 @@ def prepare_tables(flat_lengths: np.ndarray):
 
 
 def decode_jax(data: bytes, *, serial_recon: bool = False, chain: str = "spec") -> np.ndarray:
-    """TPU-native `.nice` decode: bytes -> (H, W, 3) uint8.
+    """Device `.nice` decode (v2): bytes -> (H, W, 3) uint8.
 
     Parallel counterpart of ref code.rs:573-684 / hfe.rs:206-222 /
     bitreader.rs:78-100 (see module docstring).  Falls back to the host
@@ -782,7 +778,7 @@ def decode_jax(data: bytes, *, serial_recon: bool = False, chain: str = "spec") 
 def decode_batch_jax(
     datas: list[bytes], *, serial_recon: bool = False, chain: str = "spec"
 ) -> list[np.ndarray]:
-    """Batched TPU-native decode of same-shape `.nice` streams (one vmapped
+    """Batched device v2 decode of same-shape `.nice` streams (one vmapped
     dispatch; per-image Huffman tables).  Decode throughput on device comes
     from batching — the per-bit table build, chain doubling, and row scans
     all vectorize across images.  Falls back per image on corrupt streams."""

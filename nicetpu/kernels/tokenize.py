@@ -1,6 +1,6 @@
 """Vectorized `.nice` tokenizer + histogram as a jittable JAX program.
 
-TPU-first reformulation of the reference's per-pixel serial cascade
+Data-parallel reformulation of the reference's per-pixel serial cascade
 (ref code.rs:159-414): all predictors become statically-shifted tensor reads,
 mode selection is a priority select over per-mode validity masks, run lengths
 come from a log-doubling suffix-min over change indices, and the histogram is
@@ -234,8 +234,7 @@ def assemble_bins(cas: dict, run_len: jnp.ndarray, *, ndigits_cap: int, invalid_
     """Token slots directly as flat histogram bins (N, 5 + ndigits_cap).
 
     Gather-free: stream-base offsets are compile-time constants folded into
-    the per-slot select chains (a per-slot `STREAM_BASE[streams]` gather
-    costs ~7 ns/slot on TPU — more than the whole cascade).
+    the per-slot select chains (no per-slot `STREAM_BASE[streams]` gather).
     Invalid slots get `invalid_bin`.  Slot order == serial token order.
     """
     mode = cas["mode"]

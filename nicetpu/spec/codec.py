@@ -1,6 +1,6 @@
 """Numpy executable spec of the `.nice` codec.
 
-Encoder: fully vectorized over pixels (the same formulation the TPU kernels
+Encoder: fully vectorized over pixels (the same formulation the device kernels
 use — SURVEY §3.1's insight that every mode decision depends only on the raw
 input bytes).  Decoder: serial reconstruction loop mirroring ref
 code.rs:573-684, with robust handling of the end-of-image run (we never
@@ -224,7 +224,7 @@ def pack_payload(
 ) -> bytes:
     """Parallel bit-pack: exclusive-scan bit offsets + word scatter-add.
 
-    Identical math to the TPU kernel (SURVEY §7.1 bit-pack).  Returns the
+    Identical math to the device kernel (SURVEY §7.1 bit-pack).  Returns the
     payload plus the 5-byte flush tail [B, B, 0, 0, 0] (SURVEY A.1/A.6).
     """
     streams = plan.streams.reshape(-1).astype(np.int64)

@@ -1,7 +1,7 @@
 """Stage timing + device profiler traces.
 
 The reference's observability is Instant prints around each stage
-(ref main.rs:31-132); the TPU-era equivalents here are a structured stage
+(ref main.rs:31-132); the equivalents here are a structured stage
 timer (wall clock, bytes, derived MB/s) and an optional `jax.profiler`
 trace capture for TensorBoard.
 """

@@ -69,7 +69,7 @@ class TestApiBatch:
 
 
 class TestHybridScheduler:
-    """Heterogeneous round-trip scheduler (pipeline.roundtrip_hybrid): TPU
+    """Heterogeneous round-trip scheduler (pipeline.roundtrip_hybrid): device
     and CPU workers drain one queue from opposite ends; every stream must be
     byte-identical to the spec encoder regardless of who won each batch."""
 
@@ -85,8 +85,8 @@ class TestHybridScheduler:
         ]
         hb = [imgs[i : i + 4] for i in range(0, 12, 4)]
         batches = [(b, upload_batch(b)) for b in hb]
-        res, stats = roundtrip_hybrid(batches, tpu_threads=2, cpu_threads=1)
-        assert stats["tpu_batches"] + stats["cpu_batches"] == len(batches)
+        res, stats = roundtrip_hybrid(batches, device_threads=2, cpu_threads=1)
+        assert stats["device_batches"] + stats["cpu_batches"] == len(batches)
         for out, b in zip(res, hb):
             for (d, dec), im in zip(out, b):
                 assert d == codec.encode(im)
@@ -94,13 +94,13 @@ class TestHybridScheduler:
 
     def test_hybrid_host_only_entries(self):
         """dev_batch=None entries must route to the host path even when a
-        TPU worker pops them."""
+        device worker pops them."""
         from nicetpu.pipeline import roundtrip_hybrid
 
         rng = np.random.default_rng(4)
         imgs = [rng.integers(0, 256, (8, 16, 3)).astype(np.uint8) for _ in range(4)]
         batches = [(imgs[:2], None), (imgs[2:], None)]
-        res, stats = roundtrip_hybrid(batches, tpu_threads=1, cpu_threads=0)
+        res, stats = roundtrip_hybrid(batches, device_threads=1, cpu_threads=0)
         assert stats["cpu_batches"] == 2
         for out, b in zip(res, [imgs[:2], imgs[2:]]):
             for (d, dec), im in zip(out, b):

@@ -1,4 +1,4 @@
-"""Corruption-class decode tests (VERDICT r3 next #7): for each v3 gate,
+"""Corruption-class decode tests: for each v3 gate,
 construct a stream that trips exactly it and assert the gate via stats —
 "defends as designed", not merely "doesn't crash".
 

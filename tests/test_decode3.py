@@ -1,9 +1,8 @@
-"""Tests for the v3 TPU decoder (Pallas chunked walk + slot-space assembly).
+"""Tests for the v3 device decoder (chunked walk + slot-space assembly).
 
-On the CPU test platform the walk runs as the jnp reference (`walk_ref`);
-the Pallas kernel itself is exercised on the real chip by bench.py and was
-cross-validated bit-exact there.  These tests pin the full pipeline
-byte-exact against the executable spec codec.
+On the CPU test platform the walk runs as the plain reference (`walk_ref`);
+the GPU kernel is pinned against it in tests/test_walk_kernel.py.  These
+tests pin the full pipeline byte-exact against the executable spec codec.
 
 Image shapes are deliberately limited to two sizes — every distinct
 (n_pixels, width, steps, maxl) tuple is a separate XLA compile and the
@@ -115,3 +114,46 @@ def test_serial_recon_path():
     data = codec.encode(img)
     out = decode3.decode_jax_v3(data, serial_recon=True)
     assert np.array_equal(out, img)
+
+
+@pytest.mark.parametrize(
+    "n,want", [(1, 1), (7, 7), (9, 10), (16, 16), (17, 20), (33, 40), (2305, 2560), (4097, 5120)]
+)
+def test_bucket_chunks(n, want):
+    assert decode3.bucket_chunks(n) == want
+
+
+def test_bucket_chunks_bounds():
+    """Never fewer chunks, at most 25% more, and monotone."""
+    got = [decode3.bucket_chunks(n) for n in range(1, 20000)]
+    for n, b in enumerate(got, start=1):
+        assert n <= b < n * 1.25 + 1
+    assert got == sorted(got)
+
+
+def test_nearby_payloads_share_one_program():
+    """Two images whose payloads differ by a chunk or more, inside one
+    bucket, decode exactly through one compiled program."""
+    noise = mkimg(SHAPE_A, 9, runs=False)
+    hdr = C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES + 4
+    by_program: dict = {}  # (word-array shape, static args) -> {exact words: image}
+    for k in range(1, SHAPE_A[0]):  # k noisy rows over a run-heavy image
+        img = mkimg(SHAPE_A, 8)
+        img[:k] = noise[:k]
+        data = codec.encode(img)
+        bits = (len(data) - hdr) * 8
+        # the word count each rung would need with no bucket
+        exact = max(-(-bits // c.chunk_bits) * (c.chunk_bits // 32) for c in decode3.LADDER)
+        args, kw = decode3.prepare_batch_args([data])
+        key = (args[0].shape, tuple(sorted(kw.items())))
+        by_program.setdefault(key, {})[exact] = (img, data)
+    pair = next((list(v.values())[:2] for v in by_program.values() if len(v) > 1), None)
+    assert pair is not None, "no two payload sizes share one decode program"
+    sizes = []
+    for img, data in pair:
+        stats = {}
+        out = decode3.decode_jax_v3(data, stats=stats)
+        assert stats["fallbacks"] == 0
+        assert np.array_equal(out, img)
+        sizes.append(decode3._device_decode_v3._cache_size())
+    assert sizes[0] == sizes[1]

@@ -1,4 +1,4 @@
-"""TPU-native decode (kernels/decode_dev.py) vs the executable spec.
+"""The v2 device decoder (kernels/decode_dev.py) vs the executable spec.
 
 The device decoder is the parallel counterpart of the reference's serial
 decode loop (ref code.rs:573-684, hfe.rs:206-222, bitreader.rs:78-100); every

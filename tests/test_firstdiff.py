@@ -1,9 +1,9 @@
-"""Tests for the first-divergence diff utility (VERDICT r3 next #8)."""
+"""Tests for the first-divergence diff utility."""
 
 import numpy as np
 
 from nicetpu.spec import codec
-from tests.util_firstdiff import first_pixel_diff, first_token_diff, token_trace
+from util_firstdiff import first_pixel_diff, first_token_diff, token_trace
 
 
 def _img(h=24, w=24, seed=0):

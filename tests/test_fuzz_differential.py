@@ -3,8 +3,7 @@
 The reference decoder reads uninitialized memory and over-copies on corrupt
 input (SURVEY A.8.4-5, A.8.8) — the anti-goal.  Both of this repo's decoders
 must fail CLEANLY (ValueError/RuntimeError, no crash, no hang) or succeed;
-where both succeed on the same mutated stream they must agree byte-for-byte
-(VERDICT round-1 task 7).
+where both succeed on the same mutated stream they must agree byte-for-byte.
 """
 
 import numpy as np
